@@ -1,9 +1,9 @@
 """ctypes bindings for the native (C++) components.
 
-Builds native/{sais,bwtwalk,dfsgap}.cpp on first use (g++ -O2 -shared)
-into native/build/libnabwa_native.so; each entry point degrades
-gracefully (NumPy suffix array, Python scalar DFS) when no compiler is
-available.
+Builds native/*.cpp on first use (g++ -O3 -shared) into
+native/build/libnabwa_native.so; each entry point degrades gracefully
+(NumPy suffix array, Python scalar DFS) when no compiler is available.
+The GPU kernel's CUDA sources are built separately (ops/dfs_cuda.py).
 """
 
 import ctypes
@@ -24,6 +24,8 @@ _SRCS = [_ROOT / "native" / "sais.cpp",
          _ROOT / "native" / "post.cpp",
          _ROOT / "native" / "bwtgen.cpp",
          _ROOT / "native" / "fastq.cpp"]
+# headers the sources include: a change rebuilds the library
+_DEPS = _SRCS + [_ROOT / "native" / "dfsgap_core.h"]
 _BUILD = _ROOT / "native" / "build"
 _SO = _BUILD / "libnabwa_native.so"
 
@@ -55,7 +57,7 @@ def _load_locked():
     if _checked:
         return _lib
     try:
-        newest_src = max(s.stat().st_mtime for s in _SRCS)
+        newest_src = max(s.stat().st_mtime for s in _DEPS)
         if not _SO.exists() or _SO.stat().st_mtime < newest_src:
             _BUILD.mkdir(parents=True, exist_ok=True)
             subprocess.run(
@@ -83,6 +85,12 @@ def _load_locked():
             ctypes.c_int, ctypes.c_int,
             _i32, _i32, _i32]
         lib.dfs_match_gap_batch.restype = ctypes.c_int
+        lib.dfs_fixed_batch.argtypes = [
+            _u32, _u32, _u8, ctypes.c_int, ctypes.c_int, _i32, _i32, _i64,
+            _i32, _i32, ctypes.c_int]
+        lib.dfs_fixed_batch.restype = ctypes.c_int
+        lib.dfs_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.dfs_scratch_words.restype = ctypes.c_int64
         lib.bwt_sa_batch_u32.argtypes = [
             _u32, ctypes.c_uint32, _u32, ctypes.c_uint32, _u32,
             ctypes.c_int, _u32, ctypes.c_int64, _u32]
@@ -392,6 +400,53 @@ def local_rev_native(seq1, seq2, mat, row, q, r, score_f, end_i, end_j):
     return int(out[0]), int(out[1]), int(out[2])
 
 
+def pack_read_codes(reads, B=None, L=None):
+    """Search inputs for `reads` (a columnar ReadBatch, or objects with
+    .seq/.rseq/.len): uint8 [B, 2, L] (seq, rseq; padding code 4) and
+    int32 lengths [B] (0 on padding rows).  B and L default to the read
+    count and the longest read."""
+    n = len(reads)
+    columnar = hasattr(reads, "code_bytes")
+    if columnar:
+        lengths = reads.clip_lens().astype(np.int32)
+    else:
+        lengths = np.fromiter((r.len for r in reads), dtype=np.int32,
+                              count=n)
+    B = n if B is None else B
+    L = int(lengths.max(initial=0)) if L is None else L
+    lens = np.zeros(B, dtype=np.int32)
+    lens[:n] = lengths
+    lib = _load()
+    if columnar and lib is not None:
+        # one threaded native ragged gather (seq = reversed clip codes,
+        # rseq = reversed complement): no per-read objects on the hot path
+        seqs = np.full((B, 2, L), 4, dtype=np.uint8)
+        starts = np.repeat(
+            np.ascontiguousarray(reads.seq_off[reads.lo:reads.hi]), 2)
+        lens2 = np.repeat(lengths.astype(np.int64), 2)
+        flags = np.tile(np.array(
+            [1, 3 if reads.is_comp else 1], dtype=np.uint8), n)
+        out_off = np.arange(2 * n, dtype=np.int64) * L
+        lib.gather_rows_u8(reads.codes_flat, starts, lens2, flags,
+                           2 * n, seqs.reshape(-1), out_off, 0)
+    elif n and int(lengths.min()) == int(lengths.max()):
+        # uniform lengths (the common chunk): one stack, no slices
+        packed = np.stack([np.stack([r.seq for r in reads]),
+                           np.stack([r.rseq for r in reads])],
+                          axis=1).astype(np.uint8, copy=False)
+        if packed.shape == (B, 2, L):
+            seqs = np.ascontiguousarray(packed)
+        else:
+            seqs = np.full((B, 2, L), 4, dtype=np.uint8)
+            seqs[:n, :, :packed.shape[2]] = packed
+    else:
+        seqs = np.full((B, 2, L), 4, dtype=np.uint8)
+        for i, r in enumerate(reads):
+            seqs[i, 0, :r.len] = r.seq
+            seqs[i, 1, :r.len] = r.rseq
+    return seqs, lens
+
+
 def dfs_match_gap_native(fwd_bwt, primary_fwd, rev_bwt, primary_rev, l2,
                          seq_len, reads, maxdiff, local, hits_cap=512,
                          n_threads=0):
@@ -405,37 +460,8 @@ def dfs_match_gap_native(fwd_bwt, primary_fwd, rev_bwt, primary_rev, l2,
     n = len(reads)
     if n == 0:
         return []
-    if hasattr(reads, "code_bytes"):
-        # columnar ReadBatch: pack [n,2,L] via one threaded native
-        # ragged gather (seq = reversed clip codes, rseq = reversed
-        # complement) — no per-read objects on the aln hot path
-        lengths = reads.clip_lens().astype(np.int32)
-        L = int(lengths.max())
-        seqs = np.full((n, 2, L), 4, dtype=np.uint8)
-        starts = np.repeat(
-            np.ascontiguousarray(reads.seq_off[reads.lo:reads.hi]), 2)
-        lens2 = np.repeat(lengths.astype(np.int64), 2)
-        flags = np.tile(np.array(
-            [1, 3 if reads.is_comp else 1], dtype=np.uint8), n)
-        out_off = np.arange(2 * n, dtype=np.int64) * L
-        lib.gather_rows_u8(reads.codes_flat, starts, lens2, flags,
-                           2 * n, seqs.reshape(-1), out_off, 0)
-    else:
-        lengths = np.fromiter((r.len for r in reads), dtype=np.int32,
-                              count=n)
-        L = int(lengths.max())
-        if int(lengths.min()) == L:
-            # uniform lengths (the common chunk): one stack, no slices
-            seqs = np.stack(
-                [np.stack([r.seq for r in reads]),
-                 np.stack([r.rseq for r in reads])],
-                axis=1).astype(np.uint8, copy=False)
-            seqs = np.ascontiguousarray(seqs)
-        else:
-            seqs = np.full((n, 2, L), 4, dtype=np.uint8)
-            for i, r in enumerate(reads):
-                seqs[i, 0, :r.len] = r.seq
-                seqs[i, 1, :r.len] = r.rseq
+    seqs, lengths = pack_read_codes(reads)
+    L = seqs.shape[2]
     maxdiff = np.ascontiguousarray(maxdiff, dtype=np.int32)
     fwd = np.ascontiguousarray(fwd_bwt, dtype=np.uint32)
     rev = np.ascontiguousarray(rev_bwt, dtype=np.uint32)

@@ -1062,7 +1062,7 @@ def bam2bam(engine, in_bam, out_bam, gopt, popt, rng, argv=None,
     The input is split into fixed-size chunks of logical records; pass 1
     (device DFS align) and pass 2 (pairing + rescue + refine + BAM splice)
     run as pure chunk jobs over `n_workers` workers with at-least-once
-    redelivery and strictly ordered release — the TPU-native analog of the
+    redelivery and strictly ordered release — the in-process analog of the
     reference's I/O multiplexor (run_io_multiplexor, bam2bam.c:1462-1715).
     Chunk jobs never mutate shared state: results are applied by the ordered
     writer, so a redelivered chunk is idempotent by construction.

@@ -474,9 +474,6 @@ def correct_trimmed(s):
     s.len = r.full_len
 
 
-DEVICE_DP_COUNTERS = {"device": 0, "host": 0}
-
-
 def _refine_jobs(jobs, pac, l_pac, use_device, is_end_correct=True):
     """Solve a list of (apply, seq_codes, pos, ext) refinement jobs —
     device-batched banded-global DPs, scalar fallback."""
@@ -487,9 +484,6 @@ def _refine_jobs(jobs, pac, l_pac, use_device, is_end_correct=True):
                                is_end_correct)[0:1] + (np.asarray(seqc),)
                  for _, seqc, pos, ext in jobs]
         paths = [p for _, p in banded_global_batch(pairs, ALN_PARAM_BWA)]
-        DEVICE_DP_COUNTERS["device"] += len(jobs)
-    else:
-        DEVICE_DP_COUNTERS["host"] += len(jobs)
     for (apply, seqc, pos, ext), path in zip(jobs, paths):
         cig, newpos = refine_gapped_core(l_pac, pac, seqc, pos, ext,
                                          is_end_correct, path=path)

@@ -1,5 +1,5 @@
-"""Batched banded DP kernels on device — the TPU re-design of stdaln.c's
-alignment cores (SURVEY §2.4 "Pallas kernels #3/#4/#5").
+"""Batched banded DP kernels on device — stdaln.c's alignment cores as
+batched XLA programs (SURVEY §2.4).
 
 Device part computes the score lattice + packed traceback directions for a
 whole BATCH of (ref-window, read) pairs as one jit program; the short
@@ -12,7 +12,7 @@ oracle (refmodel.stdaln_scalar) by randomized property tests.
 Key vectorization: within a row, D[i] = max(M[i-1]-go, D[i-1]) - ext is a
 sequential chain; with T[i] = D[i] + ext*i it becomes a running max of
 U[i] = (M[i-1]-go) + ext*(i-1), i.e. one cummax along the row — no scalar
-loop.  Rows then advance under one lax.scan; everything on the VPU.
+loop.  Rows then advance under one lax.scan of int32 vector ops.
 """
 
 import functools
@@ -147,17 +147,17 @@ def _banded_global_device(s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend):
 
 def _use_native_dp(n_jobs):
     """Route a DP batch to the native kernels (bit-exact with the device
-    ones): always off-TPU / under NABWA_FORCE_NATIVE; on TPU only when
-    the batch is too small to amortize the device-link round trip."""
-    import os
+    ones): always where device.use_device() says no; on the GPU when the
+    batch is under 64 jobs, too small to pay for a launch and its
+    transfers.  Device batches are tallied in device.COUNTS."""
+    from .. import device
     from ..index import native as native_mod
     if native_mod._load() is None:
         return False
-    if os.environ.get("NABWA_FORCE_NATIVE"):
+    if not device.use_device() or n_jobs < 64:
         return True
-    if jax.default_backend() != "tpu":
-        return True
-    return n_jobs < 64
+    device.count("dp_jobs", n_jobs)
+    return False
 
 
 def _path_from_ctypes(cts, len1, len2):
@@ -473,12 +473,6 @@ def _local_fwd_device(s1, len1, s2, len2, mat, *, go, ge):
     return score, end_i, end_j
 
 
-# device-coverage telemetry: local-SW jobs whose quadratic forward lattice
-# ran on device vs answered host-side (len-0 inputs only)
-N_LOCAL_SW_DEVICE = 0
-N_LOCAL_SW_HOST = 0
-
-
 def local_sw_batch(jobs, ap, thres=1):
     """Batched aln_local_core for mate rescue: returns
     [(score, path, subo), ...] bit-identical to the scalar oracle with
@@ -489,7 +483,6 @@ def local_sw_batch(jobs, ap, thres=1):
     O(band*aln_len)) runs on host; path recovery batches through the
     banded-global device kernel with the reference's bandwidth-doubling
     retry (stdaln.c:723-745)."""
-    global N_LOCAL_SW_DEVICE, N_LOCAL_SW_HOST
     from ..refmodel.local_aln_scalar import local_rev
 
     res = [None] * len(jobs)
@@ -497,20 +490,16 @@ def local_sw_batch(jobs, ap, thres=1):
     for i, (a, b) in enumerate(jobs):
         if not (len(a) and len(b)):
             res[i] = (-1, None, 0)
-            N_LOCAL_SW_HOST += 1
     if not todo:
         return res
     if _use_native_dp(len(todo)):
         from ..index.native import local_fwd_native
-        N_LOCAL_SW_HOST += len(todo)
         packed = np.zeros((len(todo), 3), dtype=np.int64)
         for bi, i in enumerate(todo):
             a, b = jobs[i]
             packed[bi] = local_fwd_native(a, b, ap.matrix, ap.row,
                                           ap.gap_open, ap.gap_ext)
     else:
-        N_LOCAL_SW_DEVICE += len(todo)
-
         B = len(todo)
         # coarse buckets: rescue windows are isize-dependent (~6*std+2L),
         # so fine-grained shapes would compile a kernel per batch

@@ -1,6 +1,6 @@
 """Multi-process distribution runtime — the "network" in network-aware.
 
-TPU-native replacement for the reference's ZeroMQ topology (bam2bam.c:
+The replacement for the reference's ZeroMQ topology (bam2bam.c:
 config REQ/REP service :1238-1286, DEALER work stream :1808-1812, worker
 process :2213-2308).  The coordinator (the bam2bam master) serves chunk
 leases from the SAME ChunkScheduler its local worker threads drain, so

@@ -1,6 +1,6 @@
 """Elastic work distribution: chunk leases with at-least-once redelivery.
 
-The TPU-native replacement for the reference's ZeroMQ I/O multiplexor
+The replacement for the reference's ZeroMQ I/O multiplexor
 (run_io_multiplexor, bam2bam.c:1462-1715).  The reference keeps a 512k-record
 ring with cursors next_output ≤ next_undone ≤ next_resend ≤ next_send ≤
 next_free, sends fresh work in order, re-sends unacknowledged records

@@ -4,7 +4,7 @@
 // These are C++ ports of the byte-identical Python implementations in
 // nabwa_tpu/models/samse.py (themselves ports of bwase.c:19-111, 253-315,
 // 458-592).  Per-record Python was the measured throughput cap of the
-// samse/sampe post stage (VERDICT r2 #5/#8); the reference runs the same
+// samse/sampe post stage; the reference runs the same
 // per-record logic in C at ~128k reads/s on one core.
 //
 // Layout contracts (see nabwa_tpu/models/post_native.py):

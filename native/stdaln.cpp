@@ -4,10 +4,10 @@
 // the reference stdaln.c:345-525 and :862-1007 including tie-break order
 // (M >= I, I > D) and the banded five-part loop structure.
 //
-// These are the host half of DP kernels #3/#5: the Pallas versions carry
-// large batches on the TPU; per-read callers (bwasw extension/cigar,
-// refine on non-TPU backends) pay device-link latency per tiny batch, so
-// they run here instead.  Exposed via plain C ABI for ctypes.
+// These are the host half of DP kernels #3/#5: the batched XLA versions
+// (nabwa_tpu/ops/dp.py) carry large batches on the GPU; small batches,
+// and every batch where no device runs, are solved here instead.
+// Exposed via plain C ABI for ctypes.
 
 #include <cstdint>
 #include <cstring>

@@ -1,11 +1,10 @@
-"""Human-scale (3 Gbp) Pallas-device DFS artifact (VERDICT r3 #2).
+"""Human-scale (3 Gbp) device DFS run.
 
-Runs the u32-position HBM Pallas tier on the 3 Gbp index built by
+Runs the default device DFS engine on the 3 Gbp index built by
 scripts/bench_index_build.py (default /tmp/nabwa_idxbuild_3000000000),
 compares every aln tuple bit-exactly against the native C++ engine on
 the same reads, times the reference binary single-thread on the SAME
-index files (the formats are bit-compatible), and writes
-GBP_DEVICE_r05.json.
+index files (the formats are bit-compatible), and writes a JSON record.
 
   NREADS=2048 python scripts/bench_gbp_device.py
 """
@@ -20,9 +19,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+from nabwa_tpu.device import setup_compile_cache  # noqa: E402
+setup_compile_cache()
 
 import numpy as np
 
@@ -71,7 +69,7 @@ if local.max_diff < local.max_gapo:
 out = {"genome_bp": int(glen), "n_reads": N}
 
 # --- native engine (ground truth; bit-exact with the scalar oracle) ---
-eng_n = AlnEngine(idx, opt, use_pallas=False)
+eng_n = AlnEngine(idx, opt)
 res_native = [None] * N
 t0 = time.time()
 eng_n._drain_native(reads, maxdiff, local, res_native, list(range(N)))
@@ -79,10 +77,8 @@ dt_n = time.time() - t0
 out["native_reads_per_sec"] = round(N / dt_n, 1)
 print(f"native: {dt_n:.2f}s ({N/dt_n:.0f} reads/s)")
 
-# --- Pallas HBM tier, device only ---
-eng = AlnEngine(idx, opt, use_pallas=True, host_frac=0.0)
-eng._device_init()
-assert eng._pal_hbm, "HBM tier not selected at 3 Gbp (u32 gate?)"
+# --- device DFS engine, device only ---
+eng = AlnEngine(idx, opt, host_frac=0.0)
 res_dev = [None] * N
 t0 = time.time()
 res_dev = eng.run_chunk(reads)
@@ -135,5 +131,7 @@ if not os.environ.get("GBP_NO_REF"):
               f"({N/dt_r:.0f} reads/s)")
     out["device_vs_reference"] = round((N / dt_d) / (N / dt_r), 2)
 
-json.dump(out, open("GBP_DEVICE_r05.json", "w"), indent=1)
+rec = pathlib.Path(__file__).resolve().parents[1] / "chiprun_out"
+rec.mkdir(exist_ok=True)
+(rec / "gbp_device.json").write_text(json.dumps(out, indent=1))
 print(json.dumps(out))

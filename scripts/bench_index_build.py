@@ -1,4 +1,4 @@
-"""Large-genome index-build proof (VERDICT item: >=100 Mbp with peak RSS).
+"""Large-genome index-build proof (>=100 Mbp with peak RSS).
 
   GLEN=100000000 python scripts/bench_index_build.py
 

@@ -1,7 +1,7 @@
 """Whole-pipeline throughput benchmark: aln / samse / sampe / bam2bam
 reads-per-second vs the single-thread reference binary on one dataset.
 
-  python scripts/bench_pipelines.py            # TPU (or whatever backend)
+  python scripts/bench_pipelines.py            # GPU (or whatever backend)
   GLEN=2000000 NREADS=8192 python scripts/bench_pipelines.py
 
 Prints one JSON object per stage.  The driver-facing bench.py stays
@@ -21,9 +21,8 @@ import jax
 if os.environ.get("NABWA_CPU"):
     jax.config.update("jax_platforms", "cpu")
     os.environ.setdefault("NABWA_FORCE_NATIVE", "1")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+from nabwa_tpu.device import setup_compile_cache  # noqa: E402
+setup_compile_cache()
 
 import numpy as np
 

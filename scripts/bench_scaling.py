@@ -1,5 +1,5 @@
 """Multi-worker scaling of distributed bam2bam through the TCP
-coordinator (VERDICT r2 #4; BASELINE: >=85 % scaling at 2+ workers).
+coordinator (BASELINE: >=85 % scaling at 2+ workers).
 
 Shape mirrors the reference's network deployment (`bam2bam -t0 -p PORT`
 master + N `bwa worker` processes, bam2bam.c:2213-2308): the master does
@@ -7,7 +7,7 @@ BAM I/O + the chunk-lease scheduler only; each worker is pinned to ONE
 native DFS thread so N workers model N single-core hosts on this 4-core
 box.
 
-Writes SCALING_r{N}.json and prints one JSON line.
+Writes chiprun_out/scaling.json and prints one JSON line.
 
   C_PAIRS=40000 WORKERS=1,2,4 python scripts/bench_scaling.py
 """
@@ -23,17 +23,14 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # host-native work only: the scaling claim is about the distribution
-# layer, not the chip (VERDICT r2 #4)
-os.environ.setdefault("NABWA_PLATFORM", "cpu")
+# layer, not the chip; the TCP workers inherit the CPU pin
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ.setdefault("NABWA_FORCE_NATIVE", "1")
-import jax
-
-jax.config.update("jax_platforms", "cpu")
+import jax  # noqa: E402,F401
 
 WORK = pathlib.Path(os.environ.get("WORKDIR", "/tmp/nabwa_scaling"))
 N_PAIRS = int(os.environ.get("C_PAIRS", "40000"))
 WORKERS = [int(x) for x in os.environ.get("WORKERS", "1,2,4").split(",")]
-ROUND = os.environ.get("ROUND", "03")
 
 
 def setup():
@@ -120,8 +117,7 @@ def run_n(fa, bam_in, n_workers):
 def records_blob(path):
     """Decompressed record stream AFTER the header: the @PG CL: line
     legitimately embeds argv (port / -f name), which differs per run —
-    raw-byte comparison would flag that as a mismatch (round-3 false
-    alarm in SCALING_r03)."""
+    raw-byte comparison would flag that as a mismatch."""
     import struct
     from nabwa_tpu.io.bam import bgzf_decompress
     raw = bgzf_decompress(pathlib.Path(path).read_bytes())
@@ -168,7 +164,8 @@ def main():
         "rows": rows,
     }
     path = pathlib.Path(__file__).resolve().parent.parent / \
-        f"SCALING_r{ROUND}.json"
+        "chiprun_out" / "scaling.json"
+    path.parent.mkdir(exist_ok=True)
     path.write_text(json.dumps(res, indent=1) + "\n")
     print(json.dumps({"metric": "scaling_efficiency_2workers",
                       "value": rows[1]["efficiency_vs_linear"]

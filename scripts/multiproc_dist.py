@@ -2,14 +2,14 @@
 processes on one host under jax.distributed, each owning one CPU device
 of a GLOBAL dp mesh, running the phase-A alignment step (cal_width +
 DFS + SA lookup) on its read shard with the per-RG isize-histogram psum
-at the phase barrier — the TPU-native replacement for the reference's
+at the phase barrier — the JAX replacement for the reference's
 ZeroMQ worker fan-out + PUB/SUB isize broadcast (bam2bam.c:1462-1715,
 1856-1870).
 
 Coordinator mode (no env): spawns N workers of this file, collects their
 shard outputs, and byte-compares the concatenation + the psum'd
 histogram against a single-process run of the same step.  Writes
-MULTIPROC_r05.json at the repo root.
+chiprun_out/multiproc.json.
 
   N_PROCS=2 python scripts/multiproc_dist.py
 """
@@ -211,7 +211,9 @@ def coordinator_main():
         "ok": bool(ok),
     }
     print(json.dumps(res))
-    (ROOT / "MULTIPROC_r05.json").write_text(json.dumps(res, indent=1))
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "multiproc.json").write_text(
+        json.dumps(res, indent=1))
     if not ok:
         raise SystemExit(1)
 

@@ -10,9 +10,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+from nabwa_tpu.device import setup_compile_cache  # noqa: E402
+setup_compile_cache()
 
 import numpy as np
 

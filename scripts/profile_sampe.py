@@ -19,7 +19,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 jax.config.update("jax_platforms", "cpu")
 os.environ.setdefault("NABWA_FORCE_NATIVE", "1")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
+from nabwa_tpu.device import setup_compile_cache  # noqa: E402
+setup_compile_cache()
 
 import numpy as np
 
@@ -60,7 +61,7 @@ for i in range(N):
 idx = BwaIndex.load(str(WORK / "g.fa"))
 gopt = GapOpt()
 popt = PeOpt()
-eng = AlnEngine(idx, gopt, use_pallas=False)
+eng = AlnEngine(idx, gopt)
 
 reads = []
 alns = []

@@ -17,7 +17,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 jax.config.update("jax_platforms", "cpu")
 os.environ.setdefault("NABWA_FORCE_NATIVE", "1")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
+from nabwa_tpu.device import setup_compile_cache  # noqa: E402
+setup_compile_cache()
 
 import numpy as np
 
@@ -61,7 +62,7 @@ if not (pe1.exists() and pe1.stat().st_size // (4 * (L + 8)) > N // 2):
 idx = BwaIndex.load(str(WORK / "g.fa"))
 gopt = GapOpt()
 popt = PeOpt()
-eng = AlnEngine(idx, gopt, use_pallas=False)
+eng = AlnEngine(idx, gopt)
 
 reads, alns = [], []
 t0 = time.time()

@@ -1,12 +1,11 @@
 """Pin the hybrid autotuner's routing decisions (models.aln.
 plan_device_share) for synthetic rate inputs.
 
-The split policy decides how much of each chunk the TPU gets vs the
+The split policy decides how much of each chunk the device gets vs the
 native host engine.  A kernel regression that tanks the device rate must
 show up as the device being benched out — and, symmetrically, a healthy
-device rate must keep the chip loaded.  These are the VERDICT-r2 #10
-guard rails: the round-3 kernel work can't silently re-route to host
-and fake a win.
+device rate must keep the device loaded.  These are guard rails: kernel
+work can't silently re-route to the host and fake a win.
 """
 
 from nabwa_tpu.models.aln import plan_device_share
@@ -18,15 +17,15 @@ def plan(n=32768, batch=1024, dev=8_000.0, host=25_000.0, cores=4,
 
 
 def test_fast_device_takes_majority():
-    # locally-attached chip clearly out-running the 4-core host: the
-    # device must get the majority share, in whole slices
+    # device clearly out-running the 4-core host: it must get the
+    # majority share, in whole slices
     n_dev = plan(dev=100_000.0, host=25_000.0)
     assert n_dev >= 16384, n_dev
     assert n_dev % 1024 == 0
     assert n_dev < 32768          # host always keeps the remainder
 
 
-def test_slow_tunnel_is_benched():
+def test_slow_device_is_benched():
     # device below ~1.1x one host core (25k/4 = 6.25k/core): driving it
     # displaces more host throughput than it adds -> bench it
     assert plan(dev=6_000.0, host=25_000.0) == 0
@@ -34,14 +33,14 @@ def test_slow_tunnel_is_benched():
 
 def test_marginal_device_gets_some_work():
     # device at ~8k vs 6.25k/core clears the opportunity bar and must
-    # NOT be benched (this is the round-2 measured operating point)
+    # NOT be benched
     n_dev = plan(dev=8_000.0, host=25_000.0)
     assert n_dev > 0
     assert n_dev % 1024 == 0
 
 
 def test_short_chunk_is_host_only():
-    # 2k reads: the fixed tunnel latency can't amortize inside the host
+    # 2k reads: the fixed device latency can't amortize inside the host
     # drain window -> all host
     assert plan(n=2048, dev=8_000.0, host=25_000.0) == 0
 

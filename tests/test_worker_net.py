@@ -39,8 +39,7 @@ def free_port():
 
 def spawn_worker(port, idle=30.0):
     env = dict(os.environ)
-    env["NABWA_PLATFORM"] = "cpu"
-    env["NABWA_CACHE_DIR"] = "/tmp/jax_test_cache"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = ROOT
     return subprocess.Popen(
         [sys.executable, "-m", "nabwa_tpu", "worker", "-p", str(port),
